@@ -1,6 +1,6 @@
-"""kmerlsh_tpu — a TPU-native metagenomic k-mer LSH clustering framework.
+"""kmerlsh_tpu — an accelerator-native metagenomic k-mer LSH clustering framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
+A from-scratch JAX/XLA re-design of the capabilities of the reference
 ``kmerLSH`` C++/OpenMP tool (disease-associated sub-metagenome discovery via
 LSH clustering of k-mer abundance profiles):
 
@@ -10,11 +10,11 @@ LSH clustering of k-mer abundance profiles):
     count-matrix artifacts (``kmer_set.hex`` / ``kmer_count.bin`` /
     ``kmer_count.log``, byte-compatible with the reference formats),
   * mode C — iterative random-hyperplane LSH clustering of the
-    log-transformed, coverage-centered abundance matrix on TPU,
+    log-transformed, coverage-centered abundance matrix on the device,
   * mode E — per-cluster two-sample Student's t-test and differential-read
     extraction from FASTQ.
 
-The compute path is pure JAX (signatures on the MXU, sort/segment merges on
+The compute path is pure JAX (signatures as one matmul, sort/segment merges on
 device, batched t-tests); the host side handles streaming I/O and artifact
 codecs. Multi-chip scaling shards the k-mer row axis over a
 ``jax.sharding.Mesh`` (see ``kmerlsh_tpu.parallel``).

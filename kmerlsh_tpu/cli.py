@@ -17,7 +17,7 @@ from kmerlsh_tpu.pipeline import kmer_cluster
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="kmerlsh",
-        description="TPU-native clustering of k-mers from two metagenome groups",
+        description="LSH clustering of k-mers from two metagenome groups",
     )
     d = HyperParams()
     p.add_argument("-a", "--input1", required=True,
@@ -64,7 +64,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-thresh", type=int, default=d.batch_thresh,
                    help="out-of-core batch size in k-mer rows")
     p.add_argument("--merge-rounds", type=int, default=d.merge_rounds,
-                   help="pairing-merge rounds per LSH iteration (tpu engine)")
+                   help="pairing-merge rounds per LSH iteration (device engine)")
     p.add_argument("--trace-dir", default="",
                    help="write a jax.profiler trace of the run here")
     p.add_argument("--read-scorer",

@@ -28,7 +28,7 @@ class HyperParams:
     min_similarity: float = 0.80  # -N
     k: int = 23                   # -K
     # oversized-bucket re-partition cutoff (app/kmerLSH.cc:440). Honored by
-    # the greedy oracle engine only: the tpu engine's chain collapse costs
+    # the greedy oracle engine only: the device engine's chain collapse costs
     # the same regardless of bucket size, so it needs no special case
     # (cluster/engine.py docstring) and ignores this knob.
     bucket_size_threshold: int = 1_000_000
@@ -54,15 +54,15 @@ class HyperParams:
 
     verbose: bool = False
 
-    # --- TPU-framework-only knobs (no reference equivalent) ---
+    # --- framework-only knobs (no reference equivalent) ---
     seed: int = 0                 # deterministic hyperplanes (ref: random_device)
-    engine: str = "tpu"           # "tpu" (device pairing-merge) | "greedy" (host)
+    engine: str = "tpu"           # "tpu" (device engine) | "greedy" (host)
     merge_rounds: int = 4         # pairing-merge rounds per LSH iteration
     ignore_small: int = 5         # final save drops clusters of size <= 5
     trace_dir: str = ""           # write a jax.profiler trace here if set
     read_scorer: str = "auto"  # "host" | "native" | "device" | "auto"
-                                  # (auto = device when an accelerator backs
-                                  # jax, host on CPU-only)
+                                  # (auto = native when built, else device
+                                  # on an accelerator, host on CPU-only)
     # multi-host launch (parallel/multihost.py): every host runs the same
     # command with these three set; empty coordinator = single-process
     coordinator: str = ""         # jax.distributed coordinator host:port

@@ -1,4 +1,4 @@
-"""Random-hyperplane LSH signatures on the MXU.
+"""Random-hyperplane LSH signatures as one matmul.
 
 Replaces the reference's per-row scalar loop (``LSH::random_projection``,
 hash/lshash.cc:44-59 — hot loop #1, O(n·h·d) scalar FLOPs) with one batched
@@ -41,6 +41,7 @@ def p_stable_signatures(
     cases. Columns ≥ h are zeroed.
     """
     p = jnp.dot(values, hyperplanes[:, :H_MAX],
+                precision=jax.lax.Precision.HIGHEST,
                 preferred_element_type=jnp.float32)
     q = jnp.floor((p + b) / r).astype(jnp.int32)
     i = jnp.arange(H_MAX, dtype=jnp.int32)
@@ -56,7 +57,8 @@ def signatures(values: jax.Array, hyperplanes: jax.Array, h: jax.Array):
     Row-major convenience twin kept for unit tests and external callers;
     the engine's hot path uses :func:`signatures_t` (sample-major layout).
     """
-    p = jnp.dot(values, hyperplanes, preferred_element_type=jnp.float32)
+    p = jnp.dot(values, hyperplanes, precision=jax.lax.Precision.HIGHEST,
+                preferred_element_type=jnp.float32)
     bits = (p[:, :H_MAX] >= 0).astype(jnp.int32)
     i = jnp.arange(H_MAX, dtype=jnp.int32)
     weights = jnp.where(i < h, jnp.left_shift(1, jnp.maximum(h - 1 - i, 0)), 0)
@@ -68,11 +70,17 @@ def signatures_t(values_t: jax.Array, hyperplanes: jax.Array, h: jax.Array):
     """Transposed-layout twin of :func:`signatures`: values_t f32 [S, M].
 
     The engine keeps cluster profiles sample-major ([S, M]) so the k-mer
-    axis rides the 128-lane dimension — XLA:TPU pads the minor dim of every
-    array to 128 lanes, so an [M, S≈20] layout would carry a ~6× HBM tax on
-    every wide op. Same key packing as :func:`signatures`.
+    axis is the contiguous minor dimension of every wide op. Same key
+    packing as :func:`signatures`.
+
+    The product runs at HIGHEST precision (full f32, never TF32 or bf16
+    passes): a key bit is the sign of a projection, so a reduced-precision
+    product flips bits of near-zero projections against the host oracle,
+    and the [31, S] × [S, M] product is tiny next to the sort that
+    follows it.
     """
-    p = jnp.dot(hyperplanes.T, values_t, preferred_element_type=jnp.float32)
+    p = jnp.dot(hyperplanes.T, values_t, precision=jax.lax.Precision.HIGHEST,
+                preferred_element_type=jnp.float32)
     bits = (p[:H_MAX] >= 0).astype(jnp.int32)
     i = jnp.arange(H_MAX, dtype=jnp.int32)
     weights = jnp.where(i < h, jnp.left_shift(1, jnp.maximum(h - 1 - i, 0)), 0)

@@ -2,7 +2,7 @@
 
 Buckets (LSH key segments) are contiguous runs after sorting; all per-bucket
 logic (ranks, pair assignment) is expressed as segmented cumulative sums so
-it vectorizes across every bucket at once — the TPU-native replacement for
+it vectorizes across every bucket at once — the data-parallel replacement for
 the reference's OpenMP loop over buckets (function/cluster.cc:281-293).
 """
 

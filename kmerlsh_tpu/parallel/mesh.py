@@ -4,7 +4,9 @@ The framework's scale axis is the k-mer row dimension — the analog of
 sequence/context parallelism (SURVEY §5.7): the abundance matrix is sharded
 over devices on the row axis ("rows"), hyperplanes and thresholds are
 replicated, and cross-shard merging moves only (key, centroid, size)
-summaries over ICI.
+summaries between devices. The mesh is flat and 1-D: every device
+exchanges with every other one each iteration, which suits an all-to-all
+interconnect such as NVLink.
 """
 
 from __future__ import annotations

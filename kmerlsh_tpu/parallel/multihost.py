@@ -1,7 +1,7 @@
 """Multi-host runtime: ``jax.distributed`` lifecycle + process-local helpers.
 
 The reference is a single OpenMP binary (SURVEY §5.8 — no distributed
-backend of any kind); the TPU framework's multi-host story is the standard
+backend of any kind); this framework's multi-host story is the standard
 JAX one: every host runs the SAME ``kmerlsh`` command with three extra
 flags (``--coordinator host:port --num-processes N --process-id i``, or the
 matching ``KMERLSH_*`` env vars), ``jax.distributed.initialize`` forms the

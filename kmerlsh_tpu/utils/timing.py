@@ -51,6 +51,35 @@ def host_memory_kb() -> int:
     return -1
 
 
+def nvidia_smi_name_power() -> list[str]:
+    """One ``name, power.limit`` line per visible NVIDIA card, exactly as
+    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+    prints them; empty when nvidia-smi is absent. Every measured number is
+    reported beside these: a card set below its maximum power runs slower
+    under load."""
+    import shutil
+    import subprocess
+
+    if shutil.which("nvidia-smi") is None:
+        return []
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=False)
+    return [ln.strip() for ln in out.stdout.splitlines() if ln.strip()]
+
+
+def device_record() -> dict:
+    """The device a measurement ran on, as JAX reports it, plus the
+    cards' name and power limit."""
+    import jax
+
+    d = jax.devices()[0]
+    return {"platform": d.platform, "kind": d.device_kind,
+            "count": len(jax.devices()),
+            "name_power_limit": nvidia_smi_name_power()}
+
+
 def device_memory_stats() -> dict:
     """Best-effort live device memory, the analog of the VmSize probe."""
     try:

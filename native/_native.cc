@@ -1,7 +1,7 @@
 // kmerlsh_tpu native host runtime: streaming FASTQ/gzip parser and
 // open-addressing canonical k-mer counter.
 //
-// TPU-era replacement for the reference's host-side C++ components:
+// Replacement for the reference's host-side C++ components:
 //   * kseq.h + utils/fastq.cc  -> FastqReader (zlib gzFile streaming,
 //     part-buffered like the reference's 2^16-read parts)
 //   * utils/libcuckoo + kmer/kmc_reader.cc -> KmerCounter (key-range-sharded

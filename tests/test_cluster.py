@@ -47,7 +47,7 @@ def test_planted_recovery(eng):
     assert sorted(sizes.tolist()) == [25] * 12
     assert same_partition(partition_of(members, len(X)), labels)
     # centroid of a pure cluster ≈ member mean (tolerance covers the
-    # default f16-packed sort payloads: one-time ~5e-4 rounding)
+    # f16-packed sort payloads of PERMUTE=payload_sort_f16: ~5e-4 rounding)
     for c, ids in enumerate(members):
         np.testing.assert_allclose(cents[c], X[np.asarray(ids, int)].mean(0),
                                    atol=2e-3)
@@ -121,7 +121,7 @@ def test_single_row_and_empty():
 
 def test_large_duplicate_bucket_collapses_fast():
     # 2000 identical rows: pairing-merge must collapse them within few
-    # iterations (log-depth), the TPU answer to nestedCluster
+    # iterations (log-depth), the device answer to nestedCluster
     X = np.tile(np.array([[0.3, -1.2, 0.5, 2.0]], np.float32), (2000, 1))
     X += 1e-4 * np.random.default_rng(0).normal(size=X.shape).astype(np.float32)
     _, sizes, members = engine.cluster(X, min_similarity=0.9, iterations=25,
@@ -292,6 +292,9 @@ def test_finalize_pointer_jump_bound():
     assert (roots[: total + 1] == 0).all()
 
 
+LIMIT = 16 << 30   # a synthetic 16 GiB device
+
+
 def test_hbm_rows_budget():
     from kmerlsh_tpu.utils import hbm
 
@@ -300,70 +303,81 @@ def test_hbm_rows_budget():
     # more devices, more rows; more samples, fewer rows
     assert hbm.rows_budget(20, 8) >= b
     assert hbm.rows_budget(100, 1) <= b
-    # v5e numbers: 15.75 GB usable must reject 2^26 x 20 and accept 2^25
+    # the static model on a 16 GiB device rejects 2^26 x 20 and accepts 2^25
     per = hbm._per_row_bytes(20)
-    assert (1 << 26) * per > 15.75e9 * 0.6
-    assert (1 << 25) * per < 15.75e9
+    assert (1 << 26) * per > LIMIT * 0.6
+    assert (1 << 25) * per < LIMIT
+    assert hbm.rows_budget(20, 1, mem=LIMIT) == 1 << 24
 
 
 def test_hbm_budget_uses_measurement_at_the_boundary(monkeypatch):
     """When the matrix exceeds the static estimate (the budget actually
     decides single-batch vs out-of-core), the measured bytes/row takes
-    over: with the v5e-measured per-row cost the budget must admit 2^25×20
-    in one batch and refuse 2^26×20 (the observed fit/OOM boundary)."""
+    over: at 268 B/row on a 16 GiB device the budget admits 2^25 x 20 in
+    one batch and refuses 2^26 x 20."""
     from kmerlsh_tpu.utils import hbm
 
-    v5e = 15_753_625_600  # bytes_limit reported by a v5e chip
     calls = []
 
     def fake_measured(num_samples):
         calls.append(num_samples)
-        return 268  # bytes/row measured on v5e at S=20 (BASELINE.md)
+        return 268
 
     monkeypatch.setattr(hbm, "_cached_per_row_bytes", fake_measured)
     # small matrix: static estimate suffices, no measurement triggered
-    hbm.rows_budget(20, 1, mem=v5e, kmap_size=1 << 20)
+    hbm.rows_budget(20, 1, mem=LIMIT, kmap_size=1 << 20)
     assert calls == []
     # boundary-deciding matrix: measurement kicks in
-    b = hbm.rows_budget(20, 1, mem=v5e, kmap_size=1 << 26)
+    b = hbm.rows_budget(20, 1, mem=LIMIT, kmap_size=1 << 26)
     assert calls == [20]
     assert b == 1 << 25  # fits 2^25, refuses 2^26
 
 
-def test_hbm_static_tpu_model_pins_v5e_design_points(monkeypatch):
-    """VERDICT r4 #6: the stat-less-TPU static model must be derived from
-    the recorded v5e observation (no naked correction ratio) and must pin
-    the round-4 design points: at S=20 on a 15.75 GB v5e it admits 2^25
-    rows single-batch and refuses 2^26. Away from the calibrated sample
-    count the raised fill must NOT apply (ADVICE r4)."""
+class _FakeDevice:
+    platform = "gpu"
+    device_kind = "NVIDIA H100 80GB HBM3"
+
+    def __init__(self, stats):
+        self._stats = stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+def test_device_memory_bytes_refuses_an_accelerator_without_a_limit(
+        monkeypatch):
+    """No silent default: an accelerator that reports no bytes_limit is an
+    error, one that does is sized from it."""
+    import jax
+
     from kmerlsh_tpu.utils import hbm
 
-    v5e = 15_753_625_600
-    # the derived per-row constant matches the recorded observation
-    obs = hbm.V5E_OBSERVATION
-    per20 = hbm._tpu_static_per_row(obs["num_samples"])
-    assert per20 == round(obs["session_peak_bytes"] / obs["rows_fit"]) \
-        or abs(per20 - obs["session_peak_bytes"] / obs["rows_fit"]) < 8
-    # design points under a stat-less TPU backend
-    monkeypatch.setattr(hbm, "_cached_per_row_bytes", lambda s: None)
+    monkeypatch.setattr(jax, "devices", lambda *a: [_FakeDevice(None)])
+    with pytest.raises(RuntimeError, match="no memory limit"):
+        hbm.device_memory_bytes()
+    monkeypatch.setattr(jax, "devices",
+                        lambda *a: [_FakeDevice({"bytes_limit": LIMIT})])
+    assert hbm.device_memory_bytes() == LIMIT
 
-    class FakeJax:
-        @staticmethod
-        def default_backend():
-            return "tpu"
 
-    import sys
+def test_device_memory_bytes_on_cpu_is_host_ram():
+    import os
 
-    monkeypatch.setitem(sys.modules, "jax", FakeJax)
-    b = hbm.rows_budget(20, 1, mem=v5e, kmap_size=1 << 26)
-    assert b == 1 << 25, b
-    # far from the calibrated S: fill stays conservative (0.6), so the
-    # admitted budget is strictly below what fill=0.8 would give
-    b100 = hbm.rows_budget(100, 1, mem=v5e, kmap_size=1 << 26)
-    rows_08 = int(v5e * 0.8 / hbm._tpu_static_per_row(100))
-    assert b100 <= 1 << int(np.floor(np.log2(int(v5e * 0.6 /
-        hbm._tpu_static_per_row(100)))))
-    assert b100 < rows_08
+    import jax
+
+    from kmerlsh_tpu.utils import hbm
+
+    ram = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    assert hbm.device_memory_bytes() == ram // len(jax.local_devices())
+
+
+def test_calibration_key_carries_device_kind(monkeypatch):
+    import jax
+
+    from kmerlsh_tpu.utils import hbm
+
+    monkeypatch.setattr(jax, "devices", lambda *a: [_FakeDevice({})])
+    assert hbm.calibration_key(20) == "gpu_NVIDIA H100 80GB HBM3_S20"
 
 
 def test_half_pull_matches_full_precision():
@@ -397,7 +411,7 @@ def test_half_pull_matches_full_precision():
 def test_weighted_mean_exact_under_f32_payloads(monkeypatch):
     """With the bit-exact PERMUTE=payload_sort the merged centroid equals
     the size-weighted mean to f32 rounding (funcAB.cc:62-67), guarding the
-    exact-math path the f16 default trades away."""
+    exact-math path the f16-packed payloads trade away."""
     monkeypatch.setattr(engine, "PERMUTE", "payload_sort")
     X = np.array([[1.0, 0.0], [0.999, 0.01]], np.float32)
     w = np.array([3, 1], np.int32)

@@ -3,6 +3,7 @@ LSH, matrix text IO, memory probes."""
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from kmerlsh_tpu.io import clusterio
 from kmerlsh_tpu.kmer import hashing
@@ -74,3 +75,21 @@ def test_memory_probes():
     kb = timing.host_memory_kb()
     assert kb > 1000  # a Python process is at least a few MB
     assert isinstance(timing.device_memory_stats(), dict)
+
+
+@pytest.mark.parametrize("env_set", [True, False])
+def test_compilation_cache_location(monkeypatch, env_set):
+    """With JAX_COMPILATION_CACHE_DIR set nothing is configured here (JAX
+    reads it itself); unset, the cache is one fixed directory inside the
+    checkout."""
+    import os
+
+    from kmerlsh_tpu.utils import jaxcache
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if env_set:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/elsewhere")
+        assert jaxcache.cache_dir() is None
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        assert jaxcache.cache_dir() == os.path.join(repo, ".cache", "jax")

@@ -104,3 +104,38 @@ def test_wrs_verdicts_tail_mapping():
     # size_thresh is strict '>' (funcAB.cc:86)
     v2 = np.asarray(ttest.wrs_verdicts(rows, sizes, n1, n2, 0.01, size_thresh=100))
     assert list(v2) == [0, 0, 0]
+
+
+@pytest.mark.parametrize("S", [20, 100])
+def test_signatures_t_match_f64_sign_pack(S):
+    """signatures_t keys equal the big-endian sign pack of an f64 NumPy
+    projection through the same hyperplanes, except for bits whose
+    projection lies within f32 rounding of zero."""
+    M, h = 4096, 16
+    rng = np.random.default_rng(S)
+    x = rng.standard_normal((S, M)).astype(np.float32)
+    hyper = np.asarray(lsh.draw_hyperplanes(jax.random.PRNGKey(S), S))
+    keys, proj = lsh.signatures_t(jnp.asarray(x), jnp.asarray(hyper),
+                                  jnp.int32(h))
+    p = hyper.astype(np.float64).T @ x.astype(np.float64)
+    near = np.abs(p) <= 1e-5 * (np.abs(hyper.astype(np.float64)).T
+                                @ np.abs(x.astype(np.float64)))
+    keys = np.asarray(keys).astype(np.int64)
+    for i in range(h):
+        bit = (keys >> (h - 1 - i)) & 1
+        assert np.all((bit == (p[i] >= 0)) | near[i])
+    assert near[:h].sum() < M * h // 1000
+    np.testing.assert_allclose(np.asarray(proj), p[lsh.H_MAX], rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("fn", ["signatures", "signatures_t"])
+def test_signature_matmul_is_highest_precision(fn):
+    """The lowered product names HIGHEST precision, so no backend may run
+    it in TF32 or bf16 passes."""
+    S, M = 20, 256
+    x = jnp.zeros((M, S) if fn == "signatures" else (S, M), jnp.float32)
+    hyper = lsh.draw_hyperplanes(jax.random.PRNGKey(0), S)
+    text = jax.jit(getattr(lsh, fn)).lower(x, hyper, jnp.int32(4)).as_text()
+    dots = [ln for ln in text.splitlines() if "dot_general" in ln]
+    assert dots and all("HIGHEST" in ln for ln in dots), dots

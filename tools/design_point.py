@@ -1,12 +1,11 @@
-"""Out-of-band design-point runner (VERDICT r4 #3): one mode-C run at a
-row count chosen via KMERLSH_DP_N (default 2^26 — forces the out-of-core
-init_clustering path), recording the per-phase wall/device/pull splits
-that init_clustering now accumulates, incl. pulled bytes (halved by the
-f16 finalize packing) and the overlap of batch pulls with the next
-batch's device pass.
+"""Design-point runner: one cold mode-C run at a row count chosen via
+KMERLSH_DP_N (default 2^26 — beyond one session's device-memory budget it
+takes the out-of-core init_clustering path), recording the per-phase
+wall/device/pull splits that init_clustering accumulates, incl. pulled
+bytes and the device it ran on.
 
 Usage:  KMERLSH_DP_N=$((1<<26)) python tools/design_point.py
-Writes <dataset>/tpu_result.json (picked up by bench.py's design_points).
+Prints one JSON line.
 """
 
 import json
@@ -30,16 +29,19 @@ def main():
     shutil.rmtree(tmp, ignore_errors=True)
     p = HyperParams(
         input1=os.path.join(sub, "l1"), input2=os.path.join(sub, "l2"),
-        clust_file_name=os.path.join(sub, "tpu_result_dp.txt"),
+        clust_file_name=os.path.join(sub, "result_dp.txt"),
         tmp_dir=tmp, work_dir=sub,
         cluster_iteration=bench.ITERATIONS, min_similarity=bench.MIN_SIM,
         kmc=False, bin=False, clustering=True, extracting=False, seed=0,
         verbose=True,
     )
+    from kmerlsh_tpu.utils.timing import device_record
+
     t0 = time.perf_counter()
     st = kmer_cluster(p)
     wall = time.perf_counter() - t0
     out = {
+        "device": device_record(),
         "rows": n,
         "cold_seconds": round(wall, 2),
         "path": ("init_clustering (out-of-core)" if "C_init_clustering"
@@ -58,8 +60,6 @@ def main():
                 = round(st.times[k], 2)
     if "pull_bytes" in st.metrics:
         out["pull_mb"] = round(st.metrics["pull_bytes"] / 1e6, 1)
-    with open(os.path.join(sub, "tpu_result.json"), "w") as f:
-        json.dump(out, f)
     print(json.dumps(out), flush=True)
 
 
